@@ -14,10 +14,10 @@ Two layouts are measured when enough devices exist:
     that rays/s still scales while the field is sharded.
 
 On the CI/CPU virtual mesh this validates *structure* (collectives, shapes,
-exactness); wall-clock efficiency is only meaningful on real multi-chip
-hardware, where the driver can run this unchanged:
+exactness); wall-clock efficiency is only meaningful on several GPUs, where
+it runs unchanged:
 
-    JAX_PLATFORMS=tpu python benchmarks/scaling_harness.py
+    python benchmarks/scaling_harness.py
 
 Writes benchmarks/scaling_<backend>.json.
 """

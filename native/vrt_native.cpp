@@ -1,13 +1,13 @@
 // vrt_native — host-side native components of volumeraytracer_tpu.
 //
-// TPU-native framework's analogue of the reference's host/native layer:
+// This package's analogue of the reference's host/native layer:
 //
-//  * vrt_march_float: the float eikonal march as plain scalar C++ — the
+//  * vrt_march_float(_ex): the float eikonal march as plain scalar C++ — the
 //    same role the reference's -DNCUDA build of cuda_volume_raytracer.cu
 //    plays (Makefile:57-58): an independent host implementation of the
 //    identical kernel semantics (trace_ray_function,
 //    cuda_volume_raytracer.cu:317-374, float instantiation) used as a
-//    test oracle against the XLA/Pallas paths.  OpenMP over rays mirrors
+//    test oracle against the XLA march.  OpenMP over rays mirrors
 //    trace_rays_cpu (.cu:376-394).
 //
 //  * vrt_solve_harmonic: damped Jacobi sweeps of the edge-weighted grid
@@ -57,45 +57,118 @@ static inline void interp4(const float* f, int X, int Y, int Z, int C,
             }
 }
 
-// Float eikonal march over a packed (X, Y, Z, 4) field.  Per-ray state is
-// updated in place; iters[i] returns executed steps.  Semantics identical
-// to ops/march.py _float_step with opaque_when_positive=true, nearest=false
-// (which itself mirrors trace_ray_function, cuda_volume_raytracer.cu:
-// 335-349: interp, break on opacity channel > 0, bend, inverse-speed step).
-void vrt_march_float(const float* packed, int X, int Y, int Z,
-                     float* pos, float* dir, uint32_t* iters, int n_rays,
-                     uint32_t budget, const float* bend, const float* step_scale,
-                     int nthreads) {
+}  // extern "C"
+
+// One ray of the float eikonal march over a packed (dims..., NDIM+1) field,
+// state updated in place.  Semantics identical to ops/march.py _float_step
+// with opaque_when_positive=true, nearest=false (which itself mirrors
+// trace_ray_function, cuda_volume_raytracer.cu:335-349): absorb, interp,
+// break on opacity channel > 0, bend, inverse-speed step.  ``tr`` is the
+// translucency on the packed grid (nullptr: fully transparent); returns the
+// executed steps, budget - remaining.
+template <int NDIM>
+static uint32_t march_ray(const float* packed, const int* dims,
+                          const uint32_t* tr, uint32_t min_brightness,
+                          float* p, float* d, uint32_t* brightness,
+                          uint32_t budget, const float* bend,
+                          const float* step_scale) {
+    constexpr int C = NDIM + 1;
+    long stride[NDIM];
+    stride[NDIM - 1] = C;
+    for (int a = NDIM - 2; a >= 0; --a) stride[a] = stride[a + 1] * dims[a + 1];
+    // budget-1: the reference consumes one slot for the start path entry
+    // (cuda_volume_raytracer.cu:333)
+    uint32_t remaining = budget > 0 ? budget - 1 : 0;
+    uint32_t b = brightness ? *brightness : 0xFFFFFFFFu;
+    for (;;) {
+        bool inb = remaining > 0;
+        for (int a = 0; a < NDIM; ++a)
+            inb = inb && p[a] >= 0.f && p[a] < (float)(dims[a] - 1);
+        if (!inb) break;
+        int base[NDIM];
+        float f[NDIM], g[NDIM];
+        long off = 0, voff = 0;
+        for (int a = 0; a < NDIM; ++a) {
+            const int ia = (int)std::floor(p[a]);
+            // absorption reads the voxel that holds the ray (clamped)
+            voff += (long)std::min(std::max(ia, 0), dims[a] - 1) * (stride[a] / C);
+            base[a] = std::min(std::max(ia, 0), dims[a] - 2);
+            f[a] = p[a] - (float)base[a];
+            g[a] = 1.f - f[a];
+            off += (long)base[a] * stride[a];
+        }
+        if (tr) {
+            b -= std::min(b, 0xFFFFFFFFu - tr[voff]);
+            if (b < min_brightness) break;  // went dark (.cu:337-341)
+        }
+        // corners in itertools.product((0, 1), repeat=NDIM) order, weights
+        // multiplied axis by axis (ops/interp.py interp_linear)
+        float interp[NDIM + 1] = {};
+        for (int o = 0; o < (1 << NDIM); ++o) {
+            float w = 1.f;
+            long co = off;
+            for (int a = 0; a < NDIM; ++a) {
+                const int bit = (o >> (NDIM - 1 - a)) & 1;
+                w = w * (bit ? f[a] : g[a]);
+                co += bit * stride[a];
+            }
+            for (int c = 0; c < C; ++c) interp[c] += w * packed[co + c];
+        }
+        if (interp[NDIM] > 0.f) break;  // opaque-surface hit (.cu:343)
+        float len2 = 0.f;
+        for (int a = 0; a < NDIM; ++a) {
+            d[a] += interp[a] * bend[a];
+            len2 += d[a] * d[a];
+        }
+        const float ilen = 1.0f / len2;
+        for (int a = 0; a < NDIM; ++a) p[a] += d[a] * step_scale[a] * ilen;
+        --remaining;
+    }
+    if (brightness) *brightness = b;
+    return budget - remaining;
+}
+
+extern "C" {
+
+// Generalised oracle: 2-D or 3-D packed field, optional translucency (on the
+// packed grid) with a brightness floor, optional per-ray budgets.
+// ``brightness`` (may be nullptr) returns the remaining light; ``budgets``
+// (may be nullptr: every ray gets ``budget``) is per ray.
+void vrt_march_float_ex(const float* packed, const int* dims, int ndim,
+                        const uint32_t* translucency, uint32_t min_brightness,
+                        float* pos, float* dir, uint32_t* iters,
+                        uint32_t* brightness, const uint32_t* budgets,
+                        int n_rays, uint32_t budget, const float* bend,
+                        const float* step_scale, int nthreads) {
 #if defined(_OPENMP)
     if (nthreads > 0) omp_set_num_threads(nthreads);
 #pragma omp parallel for schedule(dynamic, 64)
 #endif
     for (int i = 0; i < n_rays; ++i) {
-        float px = pos[3 * i], py = pos[3 * i + 1], pz = pos[3 * i + 2];
-        float dx = dir[3 * i], dy = dir[3 * i + 1], dz = dir[3 * i + 2];
-        // budget-1: the reference consumes one slot for the start path
-        // entry (cuda_volume_raytracer.cu:333)
-        uint32_t remaining = budget > 0 ? budget - 1 : 0;
-        float interp[4];
-        while (remaining > 0 &&
-               px >= 0.f && px < (float)(X - 1) &&
-               py >= 0.f && py < (float)(Y - 1) &&
-               pz >= 0.f && pz < (float)(Z - 1)) {
-            interp4(packed, X, Y, Z, 4, px, py, pz, interp);
-            if (interp[3] > 0.f) break;  // opaque-surface hit (.cu:343)
-            dx += interp[0] * bend[0];
-            dy += interp[1] * bend[1];
-            dz += interp[2] * bend[2];
-            const float ilen = 1.0f / (dx * dx + dy * dy + dz * dz);
-            px += dx * step_scale[0] * ilen;
-            py += dy * step_scale[1] * ilen;
-            pz += dz * step_scale[2] * ilen;
-            --remaining;
-        }
-        pos[3 * i] = px; pos[3 * i + 1] = py; pos[3 * i + 2] = pz;
-        dir[3 * i] = dx; dir[3 * i + 1] = dy; dir[3 * i + 2] = dz;
-        iters[i] = budget - remaining;
+        const uint32_t bi = budgets ? budgets[i] : budget;
+        uint32_t* br = brightness ? brightness + i : nullptr;
+        if (br) *br = 0xFFFFFFFFu;
+        if (ndim == 2)
+            iters[i] = march_ray<2>(packed, dims, translucency, min_brightness,
+                                    pos + 2 * i, dir + 2 * i, br, bi, bend,
+                                    step_scale);
+        else
+            iters[i] = march_ray<3>(packed, dims, translucency, min_brightness,
+                                    pos + 3 * i, dir + 3 * i, br, bi, bend,
+                                    step_scale);
     }
+}
+
+// Float eikonal march over a packed (X, Y, Z, 4) field: the 3-D,
+// transparent, one-budget case of vrt_march_float_ex.  Per-ray state is
+// updated in place; iters[i] returns executed steps.
+void vrt_march_float(const float* packed, int X, int Y, int Z,
+                     float* pos, float* dir, uint32_t* iters, int n_rays,
+                     uint32_t budget, const float* bend, const float* step_scale,
+                     int nthreads) {
+    const int dims[3] = {X, Y, Z};
+    vrt_march_float_ex(packed, dims, 3, nullptr, 0, pos, dir, iters, nullptr,
+                       nullptr, n_rays, budget, bend, step_scale, nthreads);
 }
 
 // Damped Jacobi harmonic solve on an N-D grid flattened to (n, ) with

@@ -4,7 +4,7 @@
  * layer plays, /root/reference/src/java_binding.cpp): any host language
  * with a C FFI (C, C++, Java via JNI/Panama, C#, Rust, ...) can build a
  * scene once and trace ray batches against it, with no Python involved.
- * The TPU compute path (JAX/Pallas) is independent; this library is the
+ * The device compute path (JAX/XLA) is independent; this library is the
  * host-native oracle + embedding entry point (≙ the reference's -DNCUDA
  * scalar build, /root/reference/Makefile:57-58).
  *
@@ -91,6 +91,17 @@ void vrt_march_float(const float* packed, int X, int Y, int Z,
                      float* pos, float* dir, uint32_t* iters, int n_rays,
                      uint32_t budget, const float* bend,
                      const float* step_scale, int nthreads);
+
+/* Generalised oracle march: ndim 2 or 3 over a packed (dims..., ndim+1)
+ * field; optional translucency on the packed grid with a brightness floor
+ * (``brightness`` returns the remaining light, may be NULL); optional
+ * per-ray budgets (NULL: every ray gets ``budget``). */
+void vrt_march_float_ex(const float* packed, const int* dims, int ndim,
+                        const uint32_t* translucency, uint32_t min_brightness,
+                        float* pos, float* dir, uint32_t* iters,
+                        uint32_t* brightness, const uint32_t* budgets,
+                        int n_rays, uint32_t budget, const float* bend,
+                        const float* step_scale, int nthreads);
 
 /* Damped Jacobi harmonic solve (≙ solveHarmonic, solve_harmonic.cpp):
  * values/divisor (length n, row-major over dims[ndim]) updated in place,

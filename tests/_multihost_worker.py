@@ -1,9 +1,9 @@
 """Worker for tests/test_multihost.py — one *process* of a 2-process CPU
-"slice" (2 hosts × 2 virtual chips).  Exercises the real multi-host entry
+run (2 hosts × 2 virtual devices).  Exercises the real multi-host entry
 points: ``init_distributed`` (≙ init(), cuda_volume_raytracer.cu:82-101,
-generalised), ``make_host_mesh`` (hosts × local chips), and one
+generalised), ``make_host_mesh`` (hosts × local devices), and one
 ``make_brick_train_step2d`` step over the (rays, bricks) mesh with the rays
-axis crossing processes (DCN analogue) — gloo-backed CPU collectives.
+axis crossing processes — gloo-backed CPU collectives.
 
 Usage: _multihost_worker.py <coordinator_address> <num_processes> <process_id>
 Prints one line ``MH <process_id> <loss> <mesh_shape>`` on success.

@@ -1,16 +1,17 @@
-"""Kernel auto-dispatch contract (≙ the reference scheduler's ray-count
-GPU/CPU auto-dispatch, /root/reference/src/cuda_volume_raytracer.cu:804-810):
-``kernel="auto"`` picks the fused Pallas kernel on TPU for eligible batches,
-and an explicit ``kernel="pallas"`` request with unsupported features warns
-and falls back to the XLA march instead of raising (the way the reference
-compiles dead features away, .cu:216-236)."""
+"""Kernel dispatch contract: ``ops.march.resolve_kernel`` is the one place a
+float-march ``kernel`` choice is resolved.  ``"auto"`` and ``"xla"`` run the
+XLA march on every backend, ``"native"`` runs the scalar C++ oracle, and any
+other value raises — nothing falls back to another kernel."""
 
 import numpy as np
 import pytest
 
 import jax
+import jax.numpy as jnp
 
 from volumeraytracer_tpu.models.scene import RaytraceScene
+from volumeraytracer_tpu.ops.march import KERNELS, resolve_kernel
+from volumeraytracer_tpu.parallel.shard import endpoint_render
 from volumeraytracer_tpu.types import Options
 
 
@@ -20,85 +21,20 @@ def _scene3d(n=16):
     return RaytraceScene(1.0 + 0.2 * np.exp(-2 * (x * x + y * y + z * z)))
 
 
-def test_auto_stays_xla_off_tpu():
-    s = _scene3d()
-    assert s._select_kernel("auto", False, 4096) == "xla"
+@pytest.mark.parametrize("kernel", KERNELS)
+@pytest.mark.parametrize("backend", ["cpu", "gpu"])
+def test_resolve_kernel(monkeypatch, backend, kernel):
+    """The choice does not depend on the backend JAX runs on."""
+    monkeypatch.setattr(jax, "default_backend", lambda: backend)
+    assert resolve_kernel(kernel) == ("native" if kernel == "native" else "xla")
 
 
-def test_auto_picks_pallas_on_tpu(monkeypatch):
-    s = _scene3d()
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-    assert s._select_kernel("auto", False, 4096) == "pallas"
-    # below Options.minimum_device_rays (≙ _minimum_gpu, types.h:87): XLA
-    assert s._select_kernel("auto", False, s.options.minimum_device_rays - 1) == "xla"
-    # path recording is in-kernel for the (default) line layout's forward
-    # march; since round 5 the differentiable pair records too (raw
-    # snapshots threaded through the custom_vjp, host unscramble)
-    assert s._select_kernel("auto", True, 4096) == "pallas"
-    assert s._select_kernel("auto", True, 4096, differentiable=True) == "pallas"
-    # ... but only for eager calls; under a jit trace the recorder cannot
-    # unscramble on the host, so auto falls back to the XLA march
-    import jax.numpy as jnp
-
-    assert jax.jit(
-        lambda _: s._select_kernel("auto", True, 4096, differentiable=True) == "xla"
-    )(jnp.float32(0.0))
-
-
-def test_auto_threshold_is_configurable(monkeypatch):
-    s = _scene3d()
-    s.options = Options(minimum_device_rays=10_000)
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-    assert s._select_kernel("auto", False, 4096) == "xla"
-    assert s._select_kernel("auto", False, 10_000) == "pallas"
-
-
-def test_auto_2d_stays_xla(monkeypatch):
-    ior2d = 1.0 + 0.1 * np.ones((12, 12), np.float32)
-    s = RaytraceScene(ior2d)
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-    assert s._select_kernel("auto", False, 4096) == "xla"
-
-
-def test_pallas_trace_path_runs_in_kernel():
-    """kernel='pallas' + trace_path records the per-step path IN KERNEL
-    (march_lines record_path) and matches the XLA recording."""
-    s = _scene3d()
-    pos = np.array([[2.0, 8.0, 8.0]], np.float32)
-    dirs = np.array([[16.0, 0.0, 0.0]], np.float32)
-    res = s.trace_rays(
-        pos, dirs, iterations=32, mode="float", kernel="pallas",
-        trace_path=True, invscale=[2.0] * 3,
-    )
-    # path rows = budget + 1 (the start entry, ≙ .cu:333)
-    assert res.path is not None and res.path.shape[1] == 33
-    ref = s.trace_rays(
-        pos, dirs, iterations=32, mode="float", kernel="xla",
-        trace_path=True, invscale=[2.0] * 3,
-    )
-    np.testing.assert_allclose(
-        np.asarray(res.path), np.asarray(ref.path)[:, :33], rtol=0, atol=1e-4
-    )
-
-
-def test_pallas_differentiable_trace_path_falls_back_to_xla():
-    """Since round 5 the custom_vjp kernel pair records paths too (raw
-    snapshots through the vjp, host unscramble) — explicit pallas requests
-    stay on the kernel for eager calls."""
-    s = _scene3d()
-    assert s._select_kernel("pallas", True, 4096, differentiable=True) == "pallas"
-
-
-def test_pallas_2d_falls_back_to_xla():
-    ior2d = np.ones((16, 16), np.float32) * 1.2
-    s = RaytraceScene(ior2d)
-    pos = np.array([[2.0, 8.0]], np.float32)
-    dirs = np.array([[16.0, 0.0]], np.float32)
-    res = s.trace_rays(
-        pos, dirs, iterations=16, mode="float", kernel="pallas",
-        invscale=[2.0] * 2,
-    )
-    assert res.end_position.shape == (1, 2)
+@pytest.mark.parametrize("kernel", ["pallas", "cuda"])
+@pytest.mark.parametrize("backend", ["cpu", "gpu"])
+def test_invalid_kernel_raises(monkeypatch, backend, kernel):
+    monkeypatch.setattr(jax, "default_backend", lambda: backend)
+    with pytest.raises(ValueError, match="valid choices: auto, xla, native"):
+        resolve_kernel(kernel)
 
 
 def test_unknown_kernel_raises():
@@ -109,6 +45,35 @@ def test_unknown_kernel_raises():
             np.ones((1, 3), np.float32),
             iterations=4, mode="float", kernel="cuda",
         )
+
+
+@pytest.mark.parametrize("mode", ["fixed", "float"])
+def test_pallas_kernel_raises_in_trace_rays(mode):
+    s = _scene3d()
+    pos = np.full((1, 3), 4.0, np.float32)
+    if mode == "fixed":
+        pos = (pos * 0x10000).astype(np.uint32)
+    with pytest.raises(ValueError, match="unknown kernel 'pallas'"):
+        s.trace_rays(pos, np.ones((1, 3), np.float32), iterations=4,
+                     mode=mode, kernel="pallas")
+
+
+@pytest.mark.parametrize("kernel", ["pallas", "native"])
+def test_endpoint_render_refuses_kernel(kernel):
+    """The differentiable render runs only the XLA march: "pallas" is no
+    kernel at all, and the forward-only oracle has no gradient."""
+    ior = jnp.ones((12, 8, 8), jnp.float32)
+    pos = jnp.full((2, 3), 3.0, jnp.float32)
+    with pytest.raises(ValueError):
+        endpoint_render(ior, pos, pos, 8, 2.0, 4, kernel=kernel)
+
+
+def test_native_kernel_requires_float_mode():
+    s = _scene3d()
+    with pytest.raises(ValueError, match="requires mode='float'"):
+        s.trace_rays(np.full((1, 3), 0x40000, np.uint32),
+                     np.ones((1, 3), np.float32), iterations=4,
+                     mode="fixed", kernel="native")
 
 
 def test_native_kernel_matches_xla():
@@ -131,3 +96,20 @@ def test_native_kernel_matches_xla():
     np.testing.assert_array_equal(
         np.asarray(a.end_iteration), np.asarray(b.end_iteration)
     )
+
+
+def test_native_kernel_with_translucency_matches_xla():
+    """The oracle path also carries absorption and the brightness floor."""
+    n = 16
+    tr = np.full((n, n, n), 0xFFFFFFFF - int(0xFFFFFFFF / 300), np.uint32)
+    s = RaytraceScene(np.full((n, n, n), 1.3, np.float32), tr)
+    pos = np.array([[2.0, 8.0, 8.0], [2.0, 6.0, 9.0]], np.float32)
+    dirs = np.array([[16.0, 0.0, 0.0], [16.0, 1.0, -1.0]], np.float32)
+    kw = dict(iterations=400, mode="float", invscale=[2.0] * 3,
+              minimum_brightness=int(0.6 * 0xFFFFFFFF))
+    a = s.trace_rays(pos, dirs, kernel="native", **kw)
+    b = s.trace_rays(pos, dirs, kernel="xla", **kw)
+    assert (np.asarray(b.end_iteration) < 400).all()
+    np.testing.assert_array_equal(np.asarray(a.end_iteration), np.asarray(b.end_iteration))
+    np.testing.assert_array_equal(np.asarray(a.remaining_light), np.asarray(b.remaining_light))
+    np.testing.assert_allclose(np.asarray(a.end_position), np.asarray(b.end_position), atol=1e-3)

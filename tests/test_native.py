@@ -42,7 +42,7 @@ def test_native_march_matches_jnp():
         jnp.asarray(packed), None, jnp.asarray(pos), jnp.asarray(dirs), budget,
         bend_scale=bend, step_scale=step, chunk_steps=64,
     )
-    epos, edir, eiter = native.march_float(packed, pos, dirs, budget, bend, step)
+    epos, edir, eiter, _ = native.march_float(packed, pos, dirs, budget, bend, step)
 
     np.testing.assert_array_equal(eiter, np.asarray(ref.end_iteration))
     np.testing.assert_allclose(epos, np.asarray(ref.end_position), atol=2e-4)

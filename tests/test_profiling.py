@@ -3,8 +3,10 @@ wall-clock benchmark helper."""
 
 import glob
 import os
+from pathlib import Path
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 
 from volumeraytracer_tpu.ops.fields import build_packed_field
@@ -50,3 +52,27 @@ def test_benchmark_reports_rates():
     rep = profiling.benchmark(_march, packed, pos, dirs, reps=2, rays=8, steps=8 * 32)
     assert rep["seconds_per_call"] > 0
     assert rep["rays_per_s"] > 0 and rep["steps_per_s"] == rep["rays_per_s"] * 32
+
+
+def test_persistent_cache_follows_env(monkeypatch, tmp_path):
+    """With JAX_COMPILATION_CACHE_DIR set, JAX reads it itself and the
+    helper changes no setting."""
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
+    before = jax.config.jax_compilation_cache_dir
+    assert profiling.enable_persistent_cache() == str(tmp_path)
+    assert jax.config.jax_compilation_cache_dir == before
+
+
+def test_persistent_cache_defaults_to_checkout(monkeypatch):
+    """Without it, the cache goes to the fixed, gitignored
+    <checkout>/.jax_cache."""
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    root = Path(__file__).resolve().parents[1]
+    before = jax.config.jax_compilation_cache_dir
+    try:
+        path = profiling.enable_persistent_cache()
+        assert path == str(root / ".jax_cache")
+        assert jax.config.jax_compilation_cache_dir == path
+    finally:
+        jax.config.update("jax_compilation_cache_dir", before)
+    assert ".jax_cache/" in (root / ".gitignore").read_text().split()

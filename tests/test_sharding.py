@@ -1,5 +1,5 @@
-"""Multi-chip sharding tests on the virtual 8-device CPU mesh (conftest.py)
-— the TPU-mesh analogue of the reference's multi-GPU chunk scheduler tests
+"""Multi-device sharding tests on the virtual 8-device CPU mesh (conftest.py)
+— the mesh analogue of the reference's multi-GPU chunk scheduler tests
 (which don't exist; the scheduler is only exercised implicitly — here we
 assert sharded == single-device results exactly)."""
 

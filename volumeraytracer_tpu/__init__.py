@@ -1,13 +1,12 @@
-"""volumeraytracer_tpu — TPU-native differentiable GRIN volume raytracer.
+"""volumeraytracer_tpu — differentiable GRIN volume raytracer in JAX.
 
-A from-scratch JAX/XLA/Pallas/pjit framework with the capabilities of
+A from-scratch JAX/XLA framework with the capabilities of
 PaulStahr/VolumeRaytracer (see SURVEY.md): rays marched through 2D/3D voxel
 grids of refractive index, continuously bent by ∇log(n) (eikonal equation,
 |v| = n), with absorption, sub-voxel opaque-surface termination, path
 recording, scene preprocessing, a harmonic IOR-field solver, serialization
-with CLI replay — plus new TPU-first capabilities: a differentiable march
-(custom remat'd scan), Pallas forward kernels, camera rendering, and
-mesh-sharded multi-chip tracing.
+with CLI replay — plus new capabilities: a differentiable march (remat'd
+scan), camera rendering, and mesh-sharded multi-device tracing.
 """
 
 from .types import (

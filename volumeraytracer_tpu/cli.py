@@ -1,4 +1,4 @@
-"""Replay / debug CLI — the TPU equivalent of the reference's
+"""Replay / debug CLI — the equivalent of the reference's
 ``raytracer_test`` binary (/root/reference/src/raytrace_test.cpp:33-114):
 
   vrt-replay scene.npz rays.npz   # trace a serialized scene + ray instance

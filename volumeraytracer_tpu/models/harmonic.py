@@ -1,7 +1,7 @@
 """Harmonic-field solver — damped Jacobi iteration of an edge-weighted graph
 Laplacian on an N-D grid.
 
-TPU-native equivalent of ``solveHarmonic``
+JAX equivalent of ``solveHarmonic``
 (/root/reference/src/solve_harmonic.cpp:17-117): neighbour edge weight
 ``1/(1 + Δd²)`` with Δd the difference of ``derivative_divisor`` across the
 edge, Dirichlet mask ``is_fixed``, damped update

@@ -1,6 +1,6 @@
 """OpticalVolume — float voxel-unit API matching the reference CuPy layer.
 
-TPU-native equivalent of ``volumeraytracer.volume_raytracer.OpticalVolume``
+JAX equivalent of ``volumeraytracer.volume_raytracer.OpticalVolume``
 (/root/reference/src/volumeraytracer/volume_raytracer.py:246-320): float32
 positions/directions in voxel units, gradient field built from
 ``np.gradient(log ior) * scale`` smoothed with the {14,47,162} stamp,

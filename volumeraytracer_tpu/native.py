@@ -1,6 +1,6 @@
 """ctypes loader for the native host library (native/libvrt_native.so).
 
-The native layer is the TPU framework's analogue of the reference's host
+The native layer is this package's analogue of the reference's host
 build of the kernel (-DNCUDA, /root/reference/Makefile:57-58): an
 independent scalar C++ implementation of the same march semantics used as
 a cross-implementation oracle, plus OpenMP harmonic sweeps and AoS/SoA ray
@@ -12,6 +12,7 @@ unavailable — callers check ``available()``.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import subprocess
 from pathlib import Path
 from typing import Optional, Tuple
@@ -25,13 +26,19 @@ _tried = False
 
 
 def _build() -> bool:
+    """Bring the library up to date with its sources (``make`` rebuilds
+    only what changed).  Several processes (test workers) may ask at once:
+    the first to take the lock builds, the others wait and then find the
+    finished file."""
     try:
-        subprocess.run(
-            ["make", "-C", str(_NATIVE_DIR)],
-            check=True, capture_output=True, timeout=120,
-        )
+        with open(_NATIVE_DIR / ".build.lock", "w") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)
+            subprocess.run(
+                ["make", "-C", str(_NATIVE_DIR)],
+                check=True, capture_output=True, timeout=120,
+            )
         return _SO.exists()
-    except Exception:
+    except (OSError, subprocess.SubprocessError):
         return False
 
 
@@ -40,7 +47,7 @@ def load() -> Optional[ctypes.CDLL]:
     if _lib is not None or _tried:
         return _lib
     _tried = True
-    if not _SO.exists() and not _build():
+    if not _build():
         return None
     try:
         lib = ctypes.CDLL(str(_SO))
@@ -55,6 +62,12 @@ def load() -> Optional[ctypes.CDLL]:
         ctypes.c_uint32, f32p, f32p, ctypes.c_int,
     ]
     lib.vrt_march_float.restype = None
+    lib.vrt_march_float_ex.argtypes = [
+        f32p, ctypes.POINTER(ctypes.c_int), ctypes.c_int, u32p,
+        ctypes.c_uint32, f32p, f32p, u32p, u32p, u32p, ctypes.c_int,
+        ctypes.c_uint32, f32p, f32p, ctypes.c_int,
+    ]
+    lib.vrt_march_float_ex.restype = None
     lib.vrt_solve_harmonic.argtypes = [
         f64p, f64p, ctypes.POINTER(ctypes.c_uint8),
         ctypes.POINTER(ctypes.c_int64), ctypes.c_int, ctypes.c_int64,
@@ -117,28 +130,52 @@ def march_float(
     bend_scale,
     step_scale,
     nthreads: int = 0,
-) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """Scalar C++ oracle march (3D only).  Returns (end_pos, end_dir,
-    end_iteration); same semantics as ops.march.march_float."""
+    *,
+    translucency: Optional[np.ndarray] = None,
+    minimum_brightness: int = 0,
+    per_ray_budget: Optional[np.ndarray] = None,
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """Scalar C++ oracle march over a 2-D or 3-D packed field.  Returns
+    (end_pos, end_dir, end_iteration, remaining_light); same semantics as
+    ops.march.march_float (``translucency`` on the packed grid)."""
     lib = load()
     if lib is None:
         raise RuntimeError("native library unavailable (g++/make failed?)")
     packed = np.ascontiguousarray(packed, np.float32)
-    X, Y, Z, C = packed.shape
-    assert C == 4
+    dim = packed.ndim - 1
+    if dim not in (2, 3) or packed.shape[-1] != dim + 1:
+        raise ValueError(f"packed field must be (X, Y[, Z], dim+1), got {packed.shape}")
+    dims = np.asarray(packed.shape[:-1], np.int32)
     pos = np.ascontiguousarray(start_position, np.float32).copy()
     dirs = np.ascontiguousarray(start_direction, np.float32).copy()
     n = pos.shape[0]
+    if pos.shape != (n, dim) or dirs.shape != pos.shape:
+        raise ValueError(f"rays must be (N, {dim}); got {pos.shape} and {dirs.shape}")
     iters = np.zeros(n, np.uint32)
-    bend = np.ascontiguousarray(np.broadcast_to(np.asarray(bend_scale, np.float32), (3,)))
-    step = np.ascontiguousarray(np.broadcast_to(np.asarray(step_scale, np.float32), (3,)))
-    lib.vrt_march_float(
-        _f32p(packed), X, Y, Z,
-        _f32p(pos), _f32p(dirs),
-        iters.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)), n,
-        np.uint32(budget), _f32p(bend), _f32p(step), nthreads,
+    light = np.zeros(n, np.uint32)
+    u32p = ctypes.POINTER(ctypes.c_uint32)
+    tr = None
+    if translucency is not None:
+        tr = np.ascontiguousarray(translucency, np.uint32)
+        if tr.shape != packed.shape[:-1]:
+            raise ValueError(f"translucency {tr.shape} is not on the packed "
+                             f"grid {packed.shape[:-1]}")
+    budgets = None
+    if per_ray_budget is not None:
+        budgets = np.ascontiguousarray(
+            np.broadcast_to(np.asarray(per_ray_budget, np.uint32), (n,)))
+    bend = np.ascontiguousarray(np.broadcast_to(np.asarray(bend_scale, np.float32), (dim,)))
+    step = np.ascontiguousarray(np.broadcast_to(np.asarray(step_scale, np.float32), (dim,)))
+    lib.vrt_march_float_ex(
+        _f32p(packed), dims.ctypes.data_as(ctypes.POINTER(ctypes.c_int)), dim,
+        None if tr is None else tr.ctypes.data_as(u32p),
+        np.uint32(minimum_brightness),
+        _f32p(pos), _f32p(dirs), iters.ctypes.data_as(u32p),
+        light.ctypes.data_as(u32p),
+        None if budgets is None else budgets.ctypes.data_as(u32p),
+        n, np.uint32(budget), _f32p(bend), _f32p(step), nthreads,
     )
-    return pos, dirs, iters
+    return pos, dirs, iters, light
 
 
 class NativeScene:

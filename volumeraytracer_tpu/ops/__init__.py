@@ -1,4 +1,4 @@
-"""Compute ops: field preprocessing, interpolation, ray-march cores, kernels."""
+"""Compute ops: field preprocessing, interpolation, ray-march cores."""
 
 from . import fields, interp, march
 

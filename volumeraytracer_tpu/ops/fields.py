@@ -1,6 +1,6 @@
 """Scene-field preprocessing: log-index, smoothed gradients, opacity packing.
 
-TPU-first re-design of the reference preprocessing pipeline
+JAX re-design of the reference preprocessing pipeline
 (RaytraceScene ctor, /root/reference/src/image_util.cpp:430-643):
 
   1. ``ior_log = log(ior) * 0x420000``           (image_util.cpp:611)
@@ -17,8 +17,7 @@ TPU-first re-design of the reference preprocessing pipeline
 Everything is pure jnp (shifted slices + adds) so the whole pipeline is
 differentiable w.r.t. ``ior`` — the new capability that makes end-to-end
 field optimisation possible.  XLA fuses the stamp taps into a handful of
-fused elementwise passes; no Pallas needed here (bandwidth-bound, done once
-per scene update).
+fused elementwise passes (bandwidth-bound, done once per scene update).
 """
 
 from __future__ import annotations
@@ -127,7 +126,7 @@ def build_packed_field(
 ) -> jax.Array:
     """Full preprocessing: returns the channels-last packed field of shape
     ``(*[b-2 for b in bounds], dim+1)`` float32 with channels
-    ``[diff_0, ..., diff_{dim-1}, opacity]`` — the TPU layout equivalent of
+    ``[diff_0, ..., diff_{dim-1}, opacity]`` — the channels-last equivalent of
     the interleaved ``diff_interleaved`` buffer (cuda_volume_raytracer.cu:
     644-720).  Differentiable w.r.t. ``ior``."""
     ior = jnp.asarray(ior, jnp.float32)

@@ -1,6 +1,6 @@
 """Multilinear interpolation over voxel grids.
 
-TPU-native equivalents of the reference's two interpolators:
+JAX equivalents of the reference's two interpolators:
   * the in-kernel fixed-point interpolation of the packed field
     (``interpolatef``, /root/reference/src/cuda_volume_raytracer.cu:111-214):
     corner weights from the low 16 bits of the 16.16 position, 2^dim corner
@@ -9,9 +9,8 @@ TPU-native equivalents of the reference's two interpolators:
     /root/reference/src/image_util.h:338-431) used to normalise ``|v| = n``
     and to verify endpoints in the tests.
 
-On TPU the 2^dim corner reads become a batched gather from the flattened
-field (XLA lowers this to dynamic gathers); the Pallas kernels implement the
-same math with explicit VMEM-resident fields (see ops/pallas_march.py).
+The 2^dim corner reads become one batched gather from the flattened field,
+which XLA lowers to a gather kernel on the device.
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Batched eikonal ray-march cores (pure jnp / XLA).
 
-This is the TPU re-design of the reference hot loop ``trace_ray_function``
+This is the JAX re-design of the reference hot loop ``trace_ray_function``
 (/root/reference/src/cuda_volume_raytracer.cu:317-374).  Per step:
 
     brightness -= (0xFFFFFFFF - translucency[voxel])       # absorption
@@ -9,10 +9,11 @@ This is the TPU re-design of the reference hot loop ``trace_ray_function``
     dir        += interp[:dim] * invscale                  # bend: += ∇log n
     pos        += round(dir * invscale * 0x42000000 / |dir|²)
 
-Design notes (TPU-first, not a port):
-  * One CUDA thread per ray becomes one *lane* per ray: the whole ray batch
-    advances in lock-step with per-ray alive masks (predication replaces the
-    reference's per-ray ``break``; see SURVEY.md §7 "ray divergence").
+Design notes (a re-design, not a port):
+  * One CUDA thread per ray becomes one array element per ray: the whole ray
+    batch advances in lock-step with per-ray alive masks (predication
+    replaces the reference's per-ray ``break``; see SURVEY.md §7 "ray
+    divergence"), and XLA compiles each step into fused device kernels.
   * The march runs in chunks of ``chunk_steps`` fixed-trip-count inner steps
     under an outer ``lax.while_loop`` that exits when every ray is finished —
     mirroring the chunked scheduler shape of the reference
@@ -21,7 +22,7 @@ Design notes (TPU-first, not a port):
       - fixed path: uint32 16.16 positions, bit-faithful integer wrap
         semantics (the reference's pos_t math) — the parity/regression path;
       - float path: float32 voxel-unit positions, fully differentiable —
-        the training/rendering path and the Pallas kernels' semantics.
+        the training/rendering path.
   * The differentiable variant replaces while_loop with a fixed-length
     ``lax.scan`` over remat'd chunks (O(sqrt N) memory via jax.checkpoint),
     because reverse-mode AD cannot run through a dynamic while_loop.
@@ -45,6 +46,22 @@ from ..types import (
     TraceResult,
 )
 from .interp import interp_fixed, interp_linear, interp_nearest
+
+#: valid values of the ``kernel`` argument of the float-march entry points
+KERNELS = ("auto", "xla", "native")
+
+
+def resolve_kernel(kernel: str) -> str:
+    """Resolve a float-march ``kernel`` choice to what runs: ``"xla"`` (the
+    march in this module, compiled for the default JAX backend — what
+    ``"auto"`` means on every backend) or ``"native"`` (the scalar C++
+    oracle on the host).  Anything else raises; no choice falls back to
+    another implementation."""
+    if kernel not in KERNELS:
+        raise ValueError(
+            f"unknown kernel {kernel!r}; valid choices: {', '.join(KERNELS)}"
+        )
+    return "native" if kernel == "native" else "xla"
 
 
 class MarchState(NamedTuple):

@@ -2,7 +2,7 @@
 
 Two layouts (SURVEY.md §2 parallelism table, BASELINE configs 4-5):
   * ``shard``  — rays data-parallel over the mesh, field replicated
-    (the TPU analogue of the reference's per-GPU field copies);
+    (the analogue of the reference's per-GPU field copies);
   * ``bricks`` — field brick-sharded into X-slabs with halo exchange,
     ray state replicated with exactly-once window handoff (new capability;
     the reference never shards the field).

@@ -3,7 +3,7 @@
 BASELINE config 5 / SURVEY.md §2 parallelism table: the reference only ever
 *replicates* the field to every GPU (/root/reference/src/
 cuda_volume_raytracer.cu:680-685); tensor-parallel field sharding is a new
-TPU-native capability.  Design:
+capability.  Design:
 
   * the voxel grid is split into **X-slabs** (bricks), one per device on the
     ``'bricks'`` mesh axis, each slab carrying a 1-cell interpolation halo
@@ -14,7 +14,7 @@ TPU-native capability.  Design:
     ``floor(pos_x)`` and freezes the moment it crosses a brick face ("ray
     state is a checkpoint", SURVEY.md §5);
   * after each window the owners' state *deltas* are combined with one
-    ``psum`` over ICI — the exactly-once-update generalisation of the ring
+    ``psum`` — the exactly-once-update generalisation of the ring
     handoff sketched in SURVEY.md §5 (a psum also handles rays that jump
     several bricks, which a single ppermute hop cannot);
   * in the differentiable path the loss gradient w.r.t. each device's ior
@@ -26,8 +26,8 @@ TPU-native capability.  Design:
 The while_loop driver serves forward rendering; the scan driver (remat'd
 windows) serves training.  Compute is O(N_rays) per device per window (a
 device predicates rather than compacts foreign rays); the win of this layout
-is field *capacity* — a 1024³ float32 packed field (16 GiB) fits on an
-8-chip v5e slice at 2 GiB/slab.
+is field *capacity* — a 1024³ float32 packed field (16 GiB) splits into
+4 GiB slabs over four devices.
 """
 
 from __future__ import annotations
@@ -479,10 +479,11 @@ def make_mesh2d(
     n_bricks_axis: int,
     devices: Optional[Tuple[jax.Device, ...]] = None,
 ) -> Mesh:
-    """(rays × bricks) device mesh.  Lay the *bricks* axis innermost so its
-    per-window psum combine rides adjacent-ICI links; ray shards never
-    communicate during a march (matching the reference's independent GPU
-    chunks, .cu:820-946)."""
+    """(rays × bricks) device mesh, shaped by the algorithm alone: the GPUs
+    of one host reach each other all to all over NVLink, so no placement
+    of the axes is favoured.  Only the bricks axis communicates during a
+    march (its per-window psum combine); ray shards never do (matching the
+    reference's independent GPU chunks, .cu:820-946)."""
     devices = list(devices) if devices is not None else jax.devices()
     need = n_rays_axis * n_bricks_axis
     if len(devices) < need:

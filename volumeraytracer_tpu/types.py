@@ -1,4 +1,4 @@
-"""Core types, constants and pytree DTOs for the TPU-native volume raytracer.
+"""Core types, constants and pytree DTOs for the volume raytracer.
 
 Reference parity (see SURVEY.md):
   * fixed-point constants mirror /root/reference/src/types.h:5-81 — we keep the
@@ -49,13 +49,9 @@ OPACITY_SHIFT = 0x10000
 @dataclasses.dataclass
 class Options:
     """Runtime options (reference: src/types.h:83-91, negative loglevel is
-    more verbose; ``minimum_gpu``/``max_cpu`` become scheduler knobs for the
-    TPU dispatch layer)."""
+    more verbose; ``max_cpu`` caps the native oracle's host threads)."""
 
     loglevel: int = 0
-    #: below this many rays, skip device dispatch and run the pure-XLA/CPU
-    #: path (≙ ``_minimum_gpu`` = 0x80, types.h:87)
-    minimum_device_rays: int = 0x80
     #: dump every traced instance to a replay file (≙ ``_write_instance``,
     #: python_binding.cpp:21-34): ``True`` writes the reference's default
     #: ``debug_raytrace_instance.npz`` in the CWD, a string gives the path
@@ -100,9 +96,6 @@ class TraceResult:
     end_iteration: jax.Array  # (N,) uint32
     remaining_light: jax.Array  # (N,) uint32
     path: Optional[jax.Array] = None  # (N, budget, dim) if requested
-    #: Pallas-kernel scheduler windows consumed per ray tile (None on XLA
-    #: paths); == the kernel's max_windows cap ⇒ the march was truncated
-    windows_used: Optional[jax.Array] = None
     #: (N,) float32 soft transmittance — only set by the XLA float march
     #: when ``soft_opacity_tau`` is given (the differentiable relaxation of
     #: the hard opaque-surface break, SURVEY.md §7)

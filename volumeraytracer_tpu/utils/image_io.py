@@ -1,6 +1,6 @@
 """PNG image I/O and debug image-stack export.
 
-TPU-native equivalent of the reference's image layer
+Equivalent of the reference's image layer
 (IMG_IO::read_png/write_png, /root/reference/src/image_io.h:16-22,
 image_io.cpp) and its debug consumer ``export_image_stack``
 (/root/reference/src/image_util.cpp:323-377: one 8-bit PNG per z-slice of a

@@ -2,8 +2,8 @@
 
 The reference's only profiling tools are a wall-clock harness
 (/root/reference/src/performance_test.h:59-76), nvcc ``--ptxas-options=-v``
-register dumps (Makefile:61,64) and per-ray path recording.  The TPU-native
-equivalents here:
+register dumps (Makefile:61,64) and per-ray path recording.  The equivalents
+here:
 
   * :func:`trace` — ``jax.profiler`` device traces viewable in
     TensorBoard/XProf (the hardware-counter analogue of ptxas -v);
@@ -11,7 +11,7 @@ equivalents here:
     as labeled spans;
   * :func:`cost_report` — XLA's per-executable cost analysis (FLOPs, bytes
     accessed, peak memory) for any jittable, the compile-time "occupancy
-    dump" of a TPU program;
+    dump" of a compiled program;
   * :func:`benchmark` — the reference's rays-per-wall-clock protocol as a
     reusable helper (compile excluded, result synchronised).
 
@@ -22,7 +22,9 @@ lives on the march itself: ``trace_rays(..., trace_path=True)``.
 from __future__ import annotations
 
 import contextlib
+import os
 import time
+from pathlib import Path
 from typing import Any, Callable, Dict, Optional
 
 import jax
@@ -33,7 +35,7 @@ import numpy as np
 def trace(log_dir: str, create_perfetto_link: bool = False):
     """Record a ``jax.profiler`` device trace to ``log_dir`` for the scope.
 
-    View with TensorBoard (profile plugin) or XProf.  Works on TPU and CPU.
+    View with TensorBoard (profile plugin) or XProf.  Works on GPU and CPU.
     """
     jax.profiler.start_trace(log_dir, create_perfetto_link=create_perfetto_link)
     try:
@@ -52,7 +54,7 @@ def cost_report(fn: Callable, *args, static_argnames=(), **kwargs) -> Dict[str, 
     analysis: estimated FLOPs, transcendentals, bytes accessed, plus the
     compiler's memory footprint analysis when available.
 
-    This is ahead-of-time (no execution) — the TPU analogue of the
+    This is ahead-of-time (no execution) — the analogue of the
     reference's ptxas register/occupancy dumps.
     """
     jitted = jax.jit(fn, static_argnames=static_argnames)
@@ -119,15 +121,19 @@ def benchmark(
     return rep
 
 
-def enable_persistent_cache(path: str = "/root/.jax_cache") -> None:
-    """Enable JAX's persistent compilation cache so Mosaic kernel compiles
-    (minutes for the march kernels at first trace — tracked in
-    benchmarks/tpu_verify*.json) are paid once per kernel/shape, not once
-    per process.  Safe to call multiple times; respects an existing
-    JAX_COMPILATION_CACHE_DIR."""
-    import os
+#: the checkout's compile-cache directory (listed in .gitignore)
+DEFAULT_CACHE_DIR = Path(__file__).resolve().parents[2] / ".jax_cache"
 
-    cache_dir = os.environ.get("JAX_COMPILATION_CACHE_DIR", path)
-    jax.config.update("jax_compilation_cache_dir", cache_dir)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
+
+def enable_persistent_cache() -> str:
+    """Turn on JAX's persistent compilation cache and return its directory.
+
+    When ``JAX_COMPILATION_CACHE_DIR`` is set, JAX already reads it and
+    nothing is changed here.  Otherwise the cache goes to the fixed
+    directory ``<checkout>/.jax_cache`` (a fixed path, because the path is
+    part of each entry's key).  Call before the first compile."""
+    env = os.environ.get("JAX_COMPILATION_CACHE_DIR")
+    if env:
+        return env
+    jax.config.update("jax_compilation_cache_dir", str(DEFAULT_CACHE_DIR))
+    return str(DEFAULT_CACHE_DIR)

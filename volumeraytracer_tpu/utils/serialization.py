@@ -1,6 +1,6 @@
 """Scene/ray instance serialization and debug-replay fixtures.
 
-TPU-native equivalent of the reference persistence layer
+Equivalent of the reference persistence layer
 (SERIALIZE::read_value/write_value, /root/reference/src/serialize.h:12-86,
 instance (de)serializers image_util.cpp:35-144) and of the debug-capture
 workflow (``debug_*_instance`` dumps, python_binding.cpp:21-34,
